@@ -28,7 +28,7 @@ def main():
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    from h264_fer_tpu.parallel.dist import encode_multihost, maybe_init_distributed
+    from h264_fer.parallel.dist import encode_multihost, maybe_init_distributed
 
     pid, nproc = maybe_init_distributed()
     frames = content(64, 32, 5)

@@ -9,10 +9,10 @@ import pathlib
 import numpy as np
 import pytest
 
-from h264_fer_tpu.bitstream import nal as nal_mod
-from h264_fer_tpu.bitstream.bitio import BitReader, BitWriter
-from h264_fer_tpu.bitstream.expgolomb import read_se, read_ue, write_se, write_ue
-from h264_fer_tpu.bitstream.params import PPS, SPS, SliceHeader
+from h264_fer.bitstream import nal as nal_mod
+from h264_fer.bitstream.bitio import BitReader, BitWriter
+from h264_fer.bitstream.expgolomb import read_se, read_ue, write_se, write_ue
+from h264_fer.bitstream.params import PPS, SPS, SliceHeader
 
 DRUGI = pathlib.Path("/root/reference/fer_h264/fer_h264/drugi.264")
 

@@ -5,9 +5,9 @@ import pytest
 
 import jax.numpy as jnp
 
-from h264_fer_tpu.bitstream.bitio import BitWriter
-from h264_fer_tpu.ops import cavlc
-from h264_fer_tpu.ops.cavlc_jax import (
+from h264_fer.bitstream.bitio import BitWriter
+from h264_fer.ops import cavlc
+from h264_fer.ops.cavlc_jax import (
     block_symbols_bulk,
     finalize_symbols,
     nc_to_ctx,
@@ -79,7 +79,7 @@ def test_nc_to_ctx():
 
 
 def test_ue_se_bits():
-    from h264_fer_tpu.bitstream.expgolomb import ue_code as host_ue
+    from h264_fer.bitstream.expgolomb import ue_code as host_ue
 
     vs = np.array([0, 1, 2, 3, 4, 7, 8, 100, 65534], np.int32)
     nb = np.asarray(ue_bits(jnp.asarray(vs)))

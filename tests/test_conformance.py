@@ -1,4 +1,4 @@
-"""Slow conformance guard-rails (VERDICT r3 item 7): the full QP sweeps
+"""Slow conformance guard-rails: the full QP sweeps
 and the long drugi.264 decode, promoted from tools/conformance.py into CI.
 
 Run with: python -m pytest tests -m slow
@@ -19,9 +19,9 @@ import pathlib
 import numpy as np
 import pytest
 
-from h264_fer_tpu.codec.decoder import Decoder
-from h264_fer_tpu.codec.encoder import Encoder, EncoderConfig
-from h264_fer_tpu.vio.y4m import Y4MReader, psnr
+from h264_fer.codec.decoder import Decoder
+from h264_fer.codec.encoder import Encoder, EncoderConfig
+from h264_fer.vio.y4m import Y4MReader, psnr
 
 CONF = pathlib.Path(__file__).parent / "fixtures/conformance"
 CLIP = pathlib.Path(__file__).parent / "fixtures/clip_qcif_10f.y4m"

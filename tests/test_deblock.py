@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from h264_fer_tpu.codec.decoder import Decoder
-from h264_fer_tpu.codec.encoder import Encoder, EncoderConfig
-from h264_fer_tpu.vio.y4m import Y4MReader, psnr
+from h264_fer.codec.decoder import Decoder
+from h264_fer.codec.encoder import Encoder, EncoderConfig
+from h264_fer.vio.y4m import Y4MReader, psnr
 
 
 @pytest.fixture(scope="module")
@@ -19,7 +19,7 @@ def test_deblock_roundtrip_bit_exact(clip):
     emulation."""
     enc = Encoder(176, 144, EncoderConfig(qp=32, intra_every=100, deblock=True))
     dec = Decoder(deblock=True)
-    from h264_fer_tpu.bitstream import nal as N
+    from h264_fer.bitstream import nal as N
 
     for u in N.iter_nal_units(enc.headers()):
         dec.decode_nal(u)

@@ -13,8 +13,8 @@ import pathlib
 import numpy as np
 import pytest
 
-from h264_fer_tpu.codec.decoder import Decoder
-from h264_fer_tpu.vio.y4m import read_yuv
+from h264_fer.codec.decoder import Decoder
+from h264_fer.vio.y4m import read_yuv
 
 DRUGI = pathlib.Path("/root/reference/fer_h264/fer_h264/drugi.264")
 

@@ -65,7 +65,7 @@ def test_two_process_encode_matches_single(tmp_path, gop_len):
     jax.config.update("jax_platforms", "cpu")
     sys.path.insert(0, str(HERE))
     from dist_worker import content
-    from h264_fer_tpu.parallel.gop_device import GopIntraEncoder, GopIpppEncoder
+    from h264_fer.parallel.gop_device import GopIntraEncoder, GopIpppEncoder
 
     frames = content(64, 32, 5)
     if gop_len <= 1:

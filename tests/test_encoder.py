@@ -5,9 +5,9 @@ round-trip through the (reference-bit-exact) decoder, and RD quality.
 import numpy as np
 import pytest
 
-from h264_fer_tpu.codec.decoder import Decoder
-from h264_fer_tpu.codec.encoder import Encoder, EncoderConfig
-from h264_fer_tpu.vio.y4m import Y4MReader, psnr, read_yuv
+from h264_fer.codec.decoder import Decoder
+from h264_fer.codec.encoder import Encoder, EncoderConfig
+from h264_fer.vio.y4m import Y4MReader, psnr, read_yuv
 
 
 @pytest.fixture(scope="module")
@@ -68,15 +68,15 @@ def test_p_skip_and_gop_structure(clip):
     assert psnr(dec[2][0], dec[0][0]) > 45.0
 
 
-def test_tpu_iframe_all_device_path(clip):
+def test_device_iframe_all_device_path(clip):
     """All-device I-frame encode (modes + wavefront recon on device, host
     entropy only): stream decodes identically in our decoder and the
     encoder loop closes (recon == decode)."""
-    from h264_fer_tpu.codec.tpu_intra import TpuIntraPipeline
+    from h264_fer.codec.device_intra import DeviceIntraPipeline
 
-    pipe = TpuIntraPipeline(176, 144, 28)
+    pipe = DeviceIntraPipeline(176, 144, 28)
     enc = Encoder(176, 144, EncoderConfig(qp=28, intra_every=1),
-                  tpu_pipeline=pipe, tpu_iframe=True)
+                  device_pipeline=pipe, device_iframe=True)
     stream = enc.headers() + enc.encode_frame(*clip[0])
     rec = enc.reconstructed()
     dec = list(Decoder().decode_annexb(stream))

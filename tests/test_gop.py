@@ -4,8 +4,8 @@ GOP-boundary slice headers."""
 
 import numpy as np
 
-from h264_fer_tpu.parallel.dist import encode_multihost, gop_spans
-from h264_fer_tpu.vio.y4m import Y4MReader
+from h264_fer.parallel.dist import encode_multihost, gop_spans
+from h264_fer.vio.y4m import Y4MReader
 
 
 def test_gop_spans_balanced_and_idr_aligned():
@@ -27,8 +27,8 @@ def test_gop_spans_fewer_gops_than_procs():
 def test_multihost_single_process_matches_gop_encoder(fixtures_dir):
     import jax
 
-    from h264_fer_tpu.codec.decoder import Decoder
-    from h264_fer_tpu.parallel.gop_device import GopIntraEncoder
+    from h264_fer.codec.decoder import Decoder
+    from h264_fer.parallel.gop_device import GopIntraEncoder
 
     frames = list(Y4MReader(str(fixtures_dir / "clip_qcif_10f.y4m")))[:3]
     out = encode_multihost(frames, 176, 144, qp=28, gop_len=1)
@@ -43,10 +43,10 @@ def test_gop_idr_ids_distinct(fixtures_dir):
     (norm 7.4.3) in the sharded all-intra stream."""
     import jax
 
-    from h264_fer_tpu.bitstream import nal as N
-    from h264_fer_tpu.bitstream.bitio import BitReader
-    from h264_fer_tpu.bitstream.params import PPS, SPS, SliceHeader
-    from h264_fer_tpu.parallel.gop_device import GopIntraEncoder
+    from h264_fer.bitstream import nal as N
+    from h264_fer.bitstream.bitio import BitReader
+    from h264_fer.bitstream.params import PPS, SPS, SliceHeader
+    from h264_fer.parallel.gop_device import GopIntraEncoder
 
     frames = list(Y4MReader(str(fixtures_dir / "clip_qcif_10f.y4m")))[:4]
     data = GopIntraEncoder(
@@ -70,9 +70,9 @@ def test_gop_idr_ids_distinct(fixtures_dir):
 def test_multihost_single_process_ippp(fixtures_dir):
     import jax
 
-    from h264_fer_tpu.codec.decoder import Decoder
-    from h264_fer_tpu.parallel.dist import encode_multihost
-    from h264_fer_tpu.parallel.gop_device import GopIpppEncoder
+    from h264_fer.codec.decoder import Decoder
+    from h264_fer.parallel.dist import encode_multihost
+    from h264_fer.parallel.gop_device import GopIpppEncoder
 
     frames = list(Y4MReader(str(fixtures_dir / "clip_qcif_10f.y4m")))[:4]
     out = encode_multihost(frames, 176, 144, qp=28, gop_len=2)

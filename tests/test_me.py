@@ -3,7 +3,7 @@
 import numpy as np
 from numpy.lib.stride_tricks import sliding_window_view
 
-from h264_fer_tpu.ops.me import full_search_topk
+from h264_fer.ops.me import full_search_topk
 
 
 def test_topk_contains_exhaustive_argmin():

@@ -3,15 +3,15 @@
 import numpy as np
 import pytest
 
-from h264_fer_tpu.bitstream import nal
-from h264_fer_tpu.bitstream.bitio import BitWriter
-from h264_fer_tpu.native import (
+from h264_fer.bitstream import nal
+from h264_fer.bitstream.bitio import BitWriter
+from h264_fer.native import (
     bitpack_native,
     block_symbols_native,
     get_lib,
     insert_epb_native,
 )
-from h264_fer_tpu.ops import cavlc
+from h264_fer.ops import cavlc
 
 pytestmark = pytest.mark.skipif(get_lib() is None, reason="no native toolchain")
 
@@ -91,9 +91,9 @@ def _random_dev_i16(rng, nmb):
 def test_i16_frame_entropy_matches_per_mb_device_path(offset_bits):
     """Whole-slice native entropy == the Python _intra_encode_mb_device
     loop, byte-for-byte at odd splice offsets, with identical write-back
-    state (ADVICE r1 #2)."""
-    from h264_fer_tpu.bitstream.params import I_SLICE
-    from h264_fer_tpu.codec.encoder import Encoder, EncoderConfig
+    state."""
+    from h264_fer.bitstream.params import I_SLICE
+    from h264_fer.codec.encoder import Encoder, EncoderConfig
 
     rng = np.random.default_rng(21)
     wmb, hmb = 4, 3

@@ -9,9 +9,9 @@ import os
 import numpy as np
 import pytest
 
-from h264_fer_tpu.codec.decoder import Decoder
-from h264_fer_tpu.codec.encoder import Encoder, EncoderConfig
-from h264_fer_tpu.vio.y4m import Y4MReader
+from h264_fer.codec.decoder import Decoder
+from h264_fer.codec.encoder import Encoder, EncoderConfig
+from h264_fer.vio.y4m import Y4MReader
 
 
 @pytest.fixture(scope="module")
@@ -20,15 +20,15 @@ def clip(fixtures_dir):
 
 
 def _decode_both(stream, deblock=False):
-    import h264_fer_tpu.native as N
+    import h264_fer.native as N
 
     nat = list(Decoder(deblock=deblock).decode_annexb(stream))
-    os.environ["H264_TPU_NO_NATIVE"] = "1"
+    os.environ["H264_FER_NO_NATIVE"] = "1"
     N._lib = None
     try:
         py = list(Decoder(deblock=deblock).decode_annexb(stream))
     finally:
-        del os.environ["H264_TPU_NO_NATIVE"]
+        del os.environ["H264_FER_NO_NATIVE"]
         N._lib = None
     return nat, py
 
@@ -39,7 +39,7 @@ def _decode_both(stream, deblock=False):
      (28, 100, True)],
 )
 def test_native_decoder_matches_python(clip, qp, intra_every, deblock):
-    import h264_fer_tpu.native as N
+    import h264_fer.native as N
 
     if N.get_lib() is None:
         pytest.skip("native toolchain unavailable")

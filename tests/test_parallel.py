@@ -6,8 +6,8 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from h264_fer_tpu.codec.tpu_intra import intra_mode_decision
-from h264_fer_tpu.parallel.mesh import gop_boundaries, make_mesh, sharded_intra_step
+from h264_fer.codec.device_intra import intra_mode_decision
+from h264_fer.parallel.mesh import gop_boundaries, make_mesh, sharded_intra_step
 
 
 @pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 virtual devices")

@@ -8,7 +8,7 @@ import pytest
 
 import jax.numpy as jnp
 
-from h264_fer_tpu.codec.tpu_pframe import (
+from h264_fer.codec.device_pframe import (
     adaptive_maxdiff,
     integer_score_map,
     mc_chroma_bulk,
@@ -16,7 +16,7 @@ from h264_fer_tpu.codec.tpu_pframe import (
     mb_window_gather,
     qpel_refine_map,
 )
-from h264_fer_tpu.ops.interp import (
+from h264_fer.ops.interp import (
     interpolated_planes,
     interpolated_planes_jax,
     mc_macroblock_from_planes,

@@ -1,12 +1,12 @@
 """Tile-sharded full I-frame encode (parallel/tile.py): MB-row bands with
 per-wave reconstructed-row ppermute + cross-band nC context must be
 byte-identical to the single-device device_i16_frame path (SURVEY.md §2.4
-tile row, VERDICT item 5)."""
+tile row)."""
 
 import numpy as np
 import pytest
 
-from h264_fer_tpu.vio.y4m import Y4MReader
+from h264_fer.vio.y4m import Y4MReader
 
 
 @pytest.fixture(scope="module")
@@ -21,17 +21,17 @@ def test_tile_sharded_equals_single_device(clip, n_tile):
     # byte-identical stream
     import jax
 
-    from h264_fer_tpu.codec.encoder import Encoder, EncoderConfig
-    from h264_fer_tpu.codec.tpu_intra import TpuIntraPipeline
-    from h264_fer_tpu.parallel.tile import TileIntraEncoder
+    from h264_fer.codec.encoder import Encoder, EncoderConfig
+    from h264_fer.codec.device_intra import DeviceIntraPipeline
+    from h264_fer.parallel.tile import TileIntraEncoder
 
     if n_tile > len(jax.devices()):
         pytest.skip("needs more virtual devices")
     frames = clip[:2]
-    pipe = TpuIntraPipeline(176, 144, 28)
+    pipe = DeviceIntraPipeline(176, 144, 28)
     enc = Encoder(176, 144, EncoderConfig(qp=28, intra_every=1,
                                           scene_cut_idr=False),
-                  tpu_pipeline=pipe, tpu_iframe=True)
+                  device_pipeline=pipe, device_iframe=True)
     serial = enc.encode_sequence(frames)
 
     tenc = TileIntraEncoder(176, 144, 28, devices=jax.devices()[:n_tile])
@@ -46,17 +46,17 @@ def test_gop_tile_2d_equals_serial(clip, n_gop, n_tile):
     byte-identical to the serial device-path encoder."""
     import jax
 
-    from h264_fer_tpu.codec.encoder import Encoder, EncoderConfig
-    from h264_fer_tpu.codec.tpu_intra import TpuIntraPipeline
-    from h264_fer_tpu.parallel.tile import GopTileIntraEncoder
+    from h264_fer.codec.encoder import Encoder, EncoderConfig
+    from h264_fer.codec.device_intra import DeviceIntraPipeline
+    from h264_fer.parallel.tile import GopTileIntraEncoder
 
     if n_gop * n_tile > len(jax.devices()):
         pytest.skip("needs more virtual devices")
     frames = clip[:3]  # uneven over gop=2: exercises padding
-    pipe = TpuIntraPipeline(176, 144, 28)
+    pipe = DeviceIntraPipeline(176, 144, 28)
     enc = Encoder(176, 144, EncoderConfig(qp=28, intra_every=1,
                                           scene_cut_idr=False),
-                  tpu_pipeline=pipe, tpu_iframe=True)
+                  device_pipeline=pipe, device_iframe=True)
     serial = enc.encode_sequence(frames)
 
     genc = GopTileIntraEncoder(176, 144, 28, n_gop=n_gop, n_tile=n_tile)
@@ -68,8 +68,8 @@ def test_tile_recon_matches_decoder(clip):
     from the stitched stream (wavefront halo exchange is exact)."""
     import jax
 
-    from h264_fer_tpu.codec.decoder import Decoder
-    from h264_fer_tpu.parallel.tile import TileIntraEncoder
+    from h264_fer.codec.decoder import Decoder
+    from h264_fer.parallel.tile import TileIntraEncoder
 
     tenc = TileIntraEncoder(176, 144, 26, devices=jax.devices()[:3])
     data = tenc.headers() + tenc.encode_frame(*clip[0])
@@ -88,9 +88,9 @@ def test_tile_mixed_equals_single_device(clip, n_tile):
     split (hmb=9 over 2 tiles)."""
     import jax
 
-    from h264_fer_tpu.codec.decoder import Decoder
-    from h264_fer_tpu.parallel.gop_device import GopIntraEncoder
-    from h264_fer_tpu.parallel.tile import TileIntraEncoder
+    from h264_fer.codec.decoder import Decoder
+    from h264_fer.parallel.gop_device import GopIntraEncoder
+    from h264_fer.parallel.tile import TileIntraEncoder
 
     frames = clip[:2]
     serial = GopIntraEncoder(
@@ -108,8 +108,8 @@ def test_gop_tile_2d_mixed_equals_serial(clip):
     """The 2-D (gop, tile) mesh with mixed-mode I-frames."""
     import jax
 
-    from h264_fer_tpu.parallel.gop_device import GopIntraEncoder
-    from h264_fer_tpu.parallel.tile import GopTileIntraEncoder
+    from h264_fer.parallel.gop_device import GopIntraEncoder
+    from h264_fer.parallel.tile import GopTileIntraEncoder
 
     frames = clip[:3]
     serial = GopIntraEncoder(

@@ -1,13 +1,13 @@
 """Tile-sharded IPPP encode (parallel/tile_p.py): every frame — I and P —
 split into MB-row bands with reference-window, MV-prediction, nC and
 skip-run halos must be byte-identical to the serial device-path IPPP
-encoder (SURVEY.md §2.4 tile row; VERDICT r3 item 4)."""
+encoder (SURVEY.md §2.4 tile row)."""
 
 import numpy as np
 import pytest
 
-from h264_fer_tpu.codec.encoder import Encoder, EncoderConfig
-from h264_fer_tpu.vio.y4m import Y4MReader
+from h264_fer.codec.encoder import Encoder, EncoderConfig
+from h264_fer.vio.y4m import Y4MReader
 
 
 @pytest.fixture(scope="module")
@@ -16,12 +16,12 @@ def clip(fixtures_dir):
 
 
 def _serial(frames, qp, T):
-    from h264_fer_tpu.codec.tpu_intra import TpuIntraPipeline
+    from h264_fer.codec.device_intra import DeviceIntraPipeline
 
-    pipe = TpuIntraPipeline(176, 144, qp)
+    pipe = DeviceIntraPipeline(176, 144, qp)
     enc = Encoder(176, 144, EncoderConfig(qp=qp, intra_every=T,
                                           scene_cut_idr=False),
-                  tpu_pipeline=pipe, tpu_iframe=True, tpu_pframe=True)
+                  device_pipeline=pipe, device_iframe=True, device_pframe=True)
     return enc.encode_sequence(frames)
 
 
@@ -29,7 +29,7 @@ def _serial(frames, qp, T):
 def test_tile_ippp_equals_serial(clip, n_tile):
     import jax
 
-    from h264_fer_tpu.parallel.tile_p import TileIpppEncoder
+    from h264_fer.parallel.tile_p import TileIpppEncoder
 
     frames = clip[:4]
     T = 4
@@ -44,8 +44,8 @@ def test_tile_ippp_multi_gop_and_decode(clip):
     band MV state) + decoder round trip."""
     import jax
 
-    from h264_fer_tpu.codec.decoder import Decoder
-    from h264_fer_tpu.parallel.tile_p import TileIpppEncoder
+    from h264_fer.codec.decoder import Decoder
+    from h264_fer.parallel.tile_p import TileIpppEncoder
 
     frames = clip[:6]
     T = 3
@@ -64,7 +64,7 @@ def test_gop_tile_2d_ippp_equals_serial(clip, n_gop, n_tile):
     program — byte-identical to the serial IPPP encoder."""
     import jax
 
-    from h264_fer_tpu.parallel.tile_p import GopTileIpppEncoder
+    from h264_fer.parallel.tile_p import GopTileIpppEncoder
 
     if n_gop * n_tile > len(jax.devices()):
         pytest.skip("needs more virtual devices")

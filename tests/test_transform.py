@@ -10,8 +10,8 @@ match bit-exactly, on NumPy and on jax.numpy (CPU backend).
 import numpy as np
 import pytest
 
-from h264_fer_tpu.ops import transform as T
-from h264_fer_tpu.ops.tables import LEVEL_QUANTIZE, LEVEL_SCALE
+from h264_fer.ops import transform as T
+from h264_fer.ops.tables import LEVEL_QUANTIZE, LEVEL_SCALE
 
 QPS = [0, 8, 14, 23, 24, 28, 35, 36, 40, 51]
 NB = 64

@@ -5,9 +5,14 @@ import pytest
 
 import jax.numpy as jnp
 
-from h264_fer_tpu.kernels.wavefront import wavefront_i16_luma
-from h264_fer_tpu.ops import intra, transform
-from h264_fer_tpu.ops.tables import INTRA4X4_SCAN_ORDER_XY
+from h264_fer.codec.device_intra import intra_mode_decision
+from h264_fer.kernels.wavefront import (
+    wavefront_i16_frame,
+    wavefront_i16_luma,
+)
+from h264_fer.ops import intra, transform
+from h264_fer.ops.intra import INTRA16_TO_CHROMA_MODE
+from h264_fer.ops.tables import INTRA4X4_SCAN_ORDER_XY
 
 
 def host_i16_recon(y, modes, wmb, hmb, qp):
@@ -110,7 +115,7 @@ def host_i4_recon(y, modes, wmb, hmb, qp):
 
 @pytest.mark.parametrize("hmb,wmb,qp", [(4, 6, 28), (3, 3, 20), (6, 2, 35), (9, 2, 28)])
 def test_i4x4_wavefront_matches_sequential(hmb, wmb, qp):
-    from h264_fer_tpu.kernels.wavefront import wavefront_i4x4_luma
+    from h264_fer.kernels.wavefront import wavefront_i4x4_luma
 
     rng = np.random.default_rng(qp)
     y = rng.integers(0, 256, (hmb * 16, wmb * 16)).astype(np.int32)
@@ -180,7 +185,7 @@ def host_chroma_recon(cbs, crs, modes, wmb, hmb, qp):
 
 @pytest.mark.parametrize("hmb,wmb,qp", [(4, 5, 26), (3, 3, 32), (2, 6, 20), (9, 2, 30)])
 def test_chroma_wavefront_matches_sequential(hmb, wmb, qp):
-    from h264_fer_tpu.kernels.wavefront import wavefront_chroma
+    from h264_fer.kernels.wavefront import wavefront_chroma
 
     rng = np.random.default_rng(qp)
     cbs = rng.integers(0, 256, (hmb * 8, wmb * 8)).astype(np.int32)
@@ -204,7 +209,7 @@ def test_chroma_wavefront_matches_sequential(hmb, wmb, qp):
 
 @pytest.mark.parametrize("hmb,wmb,qp", [(5, 7, 28), (9, 2, 24)])
 def test_i16_wavefront_tall_and_skewed(hmb, wmb, qp):
-    from h264_fer_tpu.kernels.wavefront import (
+    from h264_fer.kernels.wavefront import (
         wavefront_i16_luma,
         wavefront_i16_luma_skewed,
     )
@@ -219,3 +224,85 @@ def test_i16_wavefront_tall_and_skewed(hmb, wmb, qp):
         got = fn(jnp.asarray(y), jnp.asarray(modes), wmb=wmb, hmb=hmb, qp=qp)
         for g, h in zip(got, gold):
             np.testing.assert_array_equal(np.asarray(g), h)
+
+
+@pytest.mark.parametrize("wh", [(176, 144), (80, 176)])  # wide and tall grids
+@pytest.mark.parametrize("qp", [10, 26, 40])
+def test_i16_frame_wavefront_matches_sequential(wh, qp):
+    """The fused 3-plane I16 frame wavefront (the device I-frame's
+    reconstruction stage) against the sequential host luma and chroma
+    references, with modes from the device mode decision."""
+    W, H = wh
+    wmb, hmb = W // 16, H // 16
+    qpc = transform.chroma_qp(qp)
+    rng = np.random.default_rng(7)
+    y = rng.integers(0, 256, (H, W)).astype(np.int32)
+    cb = rng.integers(0, 256, (H // 2, W // 2)).astype(np.int32)
+    cr = rng.integers(0, 256, (H // 2, W // 2)).astype(np.int32)
+    m16 = intra_mode_decision(jnp.asarray(y), wmb=wmb, hmb=hmb,
+                              qp=qp)["mode16"]
+    cmodes = jnp.asarray(INTRA16_TO_CHROMA_MODE)[m16]
+
+    got = wavefront_i16_frame(jnp.asarray(y), jnp.asarray(cb),
+                              jnp.asarray(cr), m16, cmodes,
+                              wmb=wmb, hmb=hmb, qp=qp, qpc=qpc)
+    luma = host_i16_recon(y, np.asarray(m16), wmb, hmb, qp)
+    rb, rr, cdc, cac = host_chroma_recon(cb, cr, np.asarray(cmodes),
+                                         wmb, hmb, qpc)
+    want = (*luma, rb, rr, cdc, cac)
+    names = ("frame", "i16dc", "ac", "cb", "cr", "cdc", "cac")
+    for name, g, h in zip(names, got, want):
+        np.testing.assert_array_equal(
+            np.asarray(g), h, err_msg=f"{name} @ {W}x{H} qp{qp}")
+
+
+def test_frame_stacked_wavefront_matches_per_frame():
+    """GOP-batch stacking: B frames stacked vertically with frame_hmb
+    produce the same modes/recon/levels as B independent runs."""
+    from h264_fer.kernels.wavefront import wavefront_i16_scan
+
+    W, H, B, qp, qpc = 176, 144, 3, 26, 24
+    wmb, hmb = W // 16, H // 16
+    nmb = wmb * hmb
+    rng = np.random.default_rng(2)
+    ys = rng.integers(0, 256, (B, H, W)).astype(np.int32)
+    cbs = rng.integers(0, 256, (B, H // 2, W // 2)).astype(np.int32)
+    crs = rng.integers(0, 256, (B, H // 2, W // 2)).astype(np.int32)
+    cmap = jnp.asarray(INTRA16_TO_CHROMA_MODE)
+
+    ystk = jnp.asarray(ys.reshape(B * H, W))
+    cbstk = jnp.asarray(cbs.reshape(B * H // 2, W // 2))
+    crstk = jnp.asarray(crs.reshape(B * H // 2, W // 2))
+    m16s = intra_mode_decision(
+        ystk, wmb=wmb, hmb=B * hmb, qp=qp, frame_hmb=hmb, modes_only=True
+    )["mode16"]
+    got = wavefront_i16_scan(
+        ystk, cbstk, crstk, m16s, cmap[m16s],
+        wmb=wmb, hmb=B * hmb, qp=qp, qpc=qpc, frame_hmb=hmb,
+    )
+
+    for k in range(B):
+        yk = jnp.asarray(ys[k])
+        m16k = intra_mode_decision(yk, wmb=wmb, hmb=hmb, qp=qp)["mode16"]
+        np.testing.assert_array_equal(
+            np.asarray(m16k), np.asarray(m16s[k * nmb : (k + 1) * nmb]),
+            err_msg=f"modes frame {k}",
+        )
+        ref = wavefront_i16_frame(
+            yk, jnp.asarray(cbs[k]), jnp.asarray(crs[k]), m16k, cmap[m16k],
+            wmb=wmb, hmb=hmb, qp=qp, qpc=qpc,
+        )
+        slices = (
+            got[0][k * H : (k + 1) * H],
+            got[1][k * nmb : (k + 1) * nmb],
+            got[2][k * nmb : (k + 1) * nmb],
+            got[3][k * H // 2 : (k + 1) * H // 2],
+            got[4][k * H // 2 : (k + 1) * H // 2],
+            got[5][:, k * nmb : (k + 1) * nmb],
+            got[6][:, k * nmb : (k + 1) * nmb],
+        )
+        for name, r, g in zip(("frame", "dc", "ac", "cb", "cr", "cdc", "cac"),
+                              ref, slices):
+            np.testing.assert_array_equal(
+                np.asarray(r), np.asarray(g), err_msg=f"{name} frame {k}"
+            )

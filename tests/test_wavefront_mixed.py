@@ -2,24 +2,24 @@
 
 The reference arbitrates per MB by exact coded bit size
 (intra.cpp:1088-1107); the host encoder replicates that, and the device
-kernel (kernels/wavefront_mixed.py + tpu_entropy.mixed_slice_entropy)
+kernel (kernels/wavefront_mixed.py + device_entropy.mixed_slice_entropy)
 must produce byte-identical streams when driven by the same pre-decided
-modes (the tpu_pipeline-assisted host path).
+modes (the device_pipeline-assisted host path).
 """
 
 import numpy as np
 import pytest
 
-from h264_fer_tpu.codec.decoder import Decoder
-from h264_fer_tpu.codec.encoder import Encoder, EncoderConfig
-from h264_fer_tpu.codec.tpu_intra import TpuIntraPipeline
-from h264_fer_tpu.vio.y4m import Y4MReader
+from h264_fer.codec.decoder import Decoder
+from h264_fer.codec.encoder import Encoder, EncoderConfig
+from h264_fer.codec.device_intra import DeviceIntraPipeline
+from h264_fer.vio.y4m import Y4MReader
 
 
-def _encode(frames, W, H, qp, tpu_iframe, nframes=2, intra_every=1):
+def _encode(frames, W, H, qp, device_iframe, nframes=2, intra_every=1):
     enc = Encoder(
         W, H, EncoderConfig(qp=qp, intra_every=intra_every),
-        tpu_pipeline=TpuIntraPipeline(W, H, qp=qp), tpu_iframe=tpu_iframe)
+        device_pipeline=DeviceIntraPipeline(W, H, qp=qp), device_iframe=device_iframe)
     out = b"".join(enc.encode_frame(*f) for f in frames[:nframes])
     return out, enc
 
@@ -28,8 +28,8 @@ def _encode(frames, W, H, qp, tpu_iframe, nframes=2, intra_every=1):
 def test_mixed_device_matches_host_exact(fixtures_dir, qp):
     frames = list(Y4MReader(str(fixtures_dir / "clip_qcif_10f.y4m")))
     W, H = frames[0][0].shape[1], frames[0][0].shape[0]
-    sh, eh = _encode(frames, W, H, qp, tpu_iframe=False)
-    sd, ed = _encode(frames, W, H, qp, tpu_iframe="mixed")
+    sh, eh = _encode(frames, W, H, qp, device_iframe=False)
+    sd, ed = _encode(frames, W, H, qp, device_iframe="mixed")
     assert sh == sd
     for a, b in zip(eh.reconstructed(), ed.reconstructed()):
         np.testing.assert_array_equal(a, b)
@@ -44,9 +44,9 @@ def test_mixed_ippp_continuation(fixtures_dir):
     leave the host encoder in exactly the state the host path produces."""
     frames = list(Y4MReader(str(fixtures_dir / "clip_qcif_10f.y4m")))
     W, H = frames[0][0].shape[1], frames[0][0].shape[0]
-    sh, _ = _encode(frames, W, H, 28, tpu_iframe=False, nframes=4,
+    sh, _ = _encode(frames, W, H, 28, device_iframe=False, nframes=4,
                     intra_every=100)
-    sd, _ = _encode(frames, W, H, 28, tpu_iframe="mixed", nframes=4,
+    sd, _ = _encode(frames, W, H, 28, device_iframe="mixed", nframes=4,
                     intra_every=100)
     assert sh == sd
 
@@ -61,12 +61,12 @@ def test_mixed_tall_geometry_decodes(fixtures_dir):
     y = np.clip(y + rng.integers(-20, 20, (H, W)), 0, 255).astype(np.uint8)
     cb = rng.integers(0, 256, (H // 2, W // 2)).astype(np.uint8)
     cr = rng.integers(0, 256, (H // 2, W // 2)).astype(np.uint8)
-    sh, eh = _encode([(y, cb, cr)], W, H, 30, tpu_iframe=False, nframes=1)
-    sd, ed = _encode([(y, cb, cr)], W, H, 30, tpu_iframe="mixed", nframes=1)
+    sh, eh = _encode([(y, cb, cr)], W, H, 30, device_iframe=False, nframes=1)
+    sd, ed = _encode([(y, cb, cr)], W, H, 30, device_iframe="mixed", nframes=1)
     assert sh == sd
     enc = Encoder(W, H, EncoderConfig(qp=30),
-                  tpu_pipeline=TpuIntraPipeline(W, H, qp=30),
-                  tpu_iframe="mixed")
+                  device_pipeline=DeviceIntraPipeline(W, H, qp=30),
+                  device_iframe="mixed")
     stream = enc.headers() + enc.encode_frame(y, cb, cr)
     dec = Decoder()
     (dy, dcb, dcr), = list(dec.decode_annexb(stream))
@@ -74,3 +74,25 @@ def test_mixed_tall_geometry_decodes(fixtures_dir):
     np.testing.assert_array_equal(dy, ry)
     np.testing.assert_array_equal(dcb, rcb)
     np.testing.assert_array_equal(dcr, rcr)
+
+
+@pytest.mark.parametrize("wh", [(176, 144), (80, 176)])  # wide and tall grids
+@pytest.mark.parametrize("qp", [10, 28])
+def test_mixed_device_matches_host_exact_shapes(wh, qp):
+    """The mixed-mode wavefront on wide and tall grids: the device frame
+    is byte-identical to the host exact path and leaves the same
+    reconstruction."""
+    W, H = wh
+    rng = np.random.default_rng(W + qp)
+    base = rng.integers(0, 200, (H // 16, W // 16))
+    y = np.kron(base, np.ones((16, 16)))
+    yy, xx = np.mgrid[0:H, 0:W]
+    y = np.clip(y + (xx + 2 * yy) % 23 + rng.integers(-12, 12, (H, W)),
+                0, 255).astype(np.uint8)
+    cb = rng.integers(90, 160, (H // 2, W // 2)).astype(np.uint8)
+    cr = rng.integers(90, 160, (H // 2, W // 2)).astype(np.uint8)
+    sh, eh = _encode([(y, cb, cr)], W, H, qp, device_iframe=False, nframes=1)
+    sd, ed = _encode([(y, cb, cr)], W, H, qp, device_iframe="mixed", nframes=1)
+    assert sh == sd
+    for a, b in zip(eh.reconstructed(), ed.reconstructed()):
+        np.testing.assert_array_equal(a, b)

@@ -1,7 +1,7 @@
 """P-frame decision wavefront vs the host encoder's per-MB loop.
 
 pframe_decide (kernels/wavefront_p.py), driven by the bulk maps
-(codec/tpu_pframe.py), must reproduce the host _inter_encode_mb decisions
+(codec/device_pframe.py), must reproduce the host _inter_encode_mb decisions
 exactly: skip flags, mb_type, final quadrant MVs, and mvds."""
 
 import numpy as np
@@ -9,22 +9,23 @@ import pytest
 
 import jax.numpy as jnp
 
-from h264_fer_tpu.codec.encoder import MB_SKIP, Encoder, EncoderConfig
-from h264_fer_tpu.codec.tpu_pframe import pframe_maps
-from h264_fer_tpu.kernels.wavefront_p import pframe_decide
-from h264_fer_tpu.ops.interp import interpolated_planes_jax
-from h264_fer_tpu.vio.y4m import Y4MReader
+from h264_fer.codec.encoder import MB_SKIP, Encoder, EncoderConfig
+from h264_fer.codec.device_pframe import pframe_maps
+from h264_fer.kernels.wavefront_p import pframe_decide
+from h264_fer.ops.interp import interpolated_planes_jax
+from h264_fer.vio.y4m import Y4MReader
 
 
-@pytest.mark.parametrize("qp", [28, 40, 46])
-def test_pframe_decisions_match_host(fixtures_dir, qp):
-    frames = list(Y4MReader(str(fixtures_dir / "clip_qcif_10f.y4m")))[:3]
-    w, h = 176, 144
+def _check_decisions(frames, w, h, qp, window_size=16):
+    """Encode frames (I then P) on the host and check every P frame's
+    device decisions against the host per-MB loop."""
     wmb, hmb = w // 16, h // 16
     nmb = wmb * hmb
 
     enc = Encoder(w, h, EncoderConfig(qp=qp, intra_every=100,
-                                      lossy_prefilter=False))
+                                      window_size=window_size,
+                                      lossy_prefilter=False,
+                                      scene_cut_idr=False))
     rec = {}
     orig = Encoder._inter_encode_mb
 
@@ -36,7 +37,7 @@ def test_pframe_decisions_match_host(fixtures_dir, qp):
     Encoder._inter_encode_mb = wrap
     try:
         enc.encode_frame(*frames[0])  # I
-        for fi in (1, 2):
+        for fi in range(1, len(frames)):
             ref_y = enc.ref_y.copy()
             prev_mv = enc.prev_mv[:, :, 0, :].copy()  # (nmb, 4, 2)
             rec.clear()
@@ -79,15 +80,51 @@ def test_pframe_decisions_match_host(fixtures_dir, qp):
         Encoder._inter_encode_mb = orig
 
 
+@pytest.mark.parametrize("qp", [28, 40, 46])
+def test_pframe_decisions_match_host(fixtures_dir, qp):
+    frames = list(Y4MReader(str(fixtures_dir / "clip_qcif_10f.y4m")))[:3]
+    _check_decisions(frames, 176, 144, qp)
+
+
+@pytest.mark.parametrize(
+    "H,W,window,qp,seed",
+    [
+        (64, 96, 8, 28, 0),   # SAD tier
+        (96, 64, 8, 40, 0),   # SSD tier; tall geometry
+        (48, 80, 4, 46, 0),   # 2*SSD tier; small window
+        (64, 96, 8, 28, 1),   # SAD tier, other content
+    ],
+)
+def test_pframe_decide_matches_host_shapes(H, W, window, qp, seed):
+    """pframe_decide on small wide, tall and narrow-window geometries:
+    shifted, noisy content over three frames, so the second P frame has
+    non-zero temporal refinement centers. The last MB is pure noise so
+    it is always coded: a trailing skip run would be dropped by the
+    host's decoder emulation, which pframe_decide leaves to its
+    callers."""
+    rng = np.random.default_rng(7 * H + W + qp + 101 * seed)
+    yy, xx = np.mgrid[0:H, 0:W]
+    base = ((xx * 3 + yy * 5) % 180 + rng.integers(0, 60, (H, W)))
+    frames = []
+    for i in range(3):
+        y = np.roll(base, (2 * i, 3 * i), (0, 1))
+        y = np.clip(y + rng.integers(-6, 7, (H, W)), 0, 255)
+        y[-16:, -16:] = rng.integers(0, 256, (16, 16))
+        cb = rng.integers(100, 140, (H // 2, W // 2))
+        cr = rng.integers(100, 140, (H // 2, W // 2))
+        frames.append(tuple(p.astype(np.uint8) for p in (y, cb, cr)))
+    _check_decisions(frames, W, H, qp, window_size=2 * window)
+
+
 @pytest.mark.parametrize("qp", [28, 40])
 def test_pframe_residual_recon_matches_host(fixtures_dir, qp):
-    from h264_fer_tpu.codec.tpu_pframe import (
+    from h264_fer.codec.device_pframe import (
         adaptive_maxdiff,
         mc_chroma_bulk,
         mc_luma_bulk,
         pframe_residual_recon,
     )
-    from h264_fer_tpu.ops.interp import pad_chroma_jax
+    from h264_fer.ops.interp import pad_chroma_jax
 
     frames = list(Y4MReader(str(fixtures_dir / "clip_qcif_10f.y4m")))[:2]
     w, h = 176, 144

@@ -19,9 +19,9 @@ import numpy as np
 
 sys.path.insert(0, str(pathlib.Path(__file__).parent.parent))
 
-from h264_fer_tpu.codec.decoder import Decoder
-from h264_fer_tpu.codec.encoder import Encoder, EncoderConfig
-from h264_fer_tpu.vio.y4m import Y4MReader, psnr
+from h264_fer.codec.decoder import Decoder
+from h264_fer.codec.encoder import Encoder, EncoderConfig
+from h264_fer.vio.y4m import Y4MReader, psnr
 
 DRUGI = "/root/reference/fer_h264/fer_h264/drugi.264"
 REFDEC = "/tmp/refbuild/refdec"

@@ -1,4 +1,4 @@
-"""Generate h264_fer_tpu/ops/cavlc_tables.py from the oracle table dump.
+"""Generate h264_fer/ops/cavlc_tables.py from the oracle table dump.
 
 The CAVLC code tables are constants from the H.264 norm (Tables 9-5,
 9-7/9-8, 9-9, 9-10). We extract them via tools/oracle's dump_cavlc harness
@@ -80,5 +80,5 @@ import numpy as np
 
 if __name__ == "__main__":
     json_path = sys.argv[1] if len(sys.argv) > 1 else "/tmp/refbuild/cavlc_tables.json"
-    out = sys.argv[2] if len(sys.argv) > 2 else "h264_fer_tpu/ops/cavlc_tables.py"
+    out = sys.argv[2] if len(sys.argv) > 2 else "h264_fer/ops/cavlc_tables.py"
     main(json_path, out)

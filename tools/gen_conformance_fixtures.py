@@ -19,7 +19,7 @@ import numpy as np
 
 sys.path.insert(0, str(pathlib.Path(__file__).parent.parent))
 
-from h264_fer_tpu.vio.y4m import Y4MReader, psnr
+from h264_fer.vio.y4m import Y4MReader, psnr
 
 ROOT = pathlib.Path(__file__).parent.parent
 CLIP = str(ROOT / "tests/fixtures/clip_qcif_10f.y4m")

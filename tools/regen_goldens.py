@@ -18,7 +18,7 @@ import tempfile
 
 sys.path.insert(0, str(pathlib.Path(__file__).parent.parent))
 
-from h264_fer_tpu.vio.y4m import Y4MReader
+from h264_fer.vio.y4m import Y4MReader
 
 REFDEC = "/tmp/refbuild/refdec"
 FIXTURES = pathlib.Path(__file__).parent.parent / "tests/fixtures"
