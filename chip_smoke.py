@@ -20,7 +20,9 @@ Phases (one card):
   d  GPU vs CPU backend streams at 640x352 (i16, mixed, deblock, IPPP)
   e  every device stage at 1080p on the GPU vs the CPU backend
 
-It exits non-zero, without printing a result, when JAX finds no GPU.
+The phases' checks run at once, so their compiles overlap; their warm
+timings then run one after another, each with the card to itself. It
+exits non-zero, without printing a result, when JAX finds no GPU.
 """
 
 from __future__ import annotations
@@ -139,10 +141,10 @@ def _same(label: str, a: bytes, b: bytes) -> None:
                              f"{len(b)} bytes)")
 
 
-def _compile_report(label: str, jitted, *args, **kw):
-    """AOT-compile a device program, print its compile seconds and
-    memory analysis, and return the compiled executable."""
-    compiled, dt = _timed(lambda: jitted.lower(*args, **kw).compile())
+def _compiled(label: str, build):
+    """Run build() (a compile that returns a jax.stages.Compiled), print
+    its seconds and memory analysis, and return the executable."""
+    compiled, dt = _timed(build)
     ma = compiled.memory_analysis()
     mem = ("memory_analysis unavailable" if ma is None else
            f"args {ma.argument_size_in_bytes} B, "
@@ -170,132 +172,78 @@ def _warm(label: str, fn, n_frames: int, reps: int = 3) -> float:
     return per
 
 
-def programs(dev, ref_dev, phases: str, w: int = W, h: int = H,
-             pw: int = PARITY_W, ph: int = PARITY_H, gop: int = 8,
-             parity_gop: int = 4):
-    """(label, jitted, args, kwargs) of the large frame and GOP programs
-    that phases a-d run, with the argument placement each caller uses:
-    committed to the device by the sequence encoders, uncommitted
-    (jnp.asarray) by the serial Encoder. Compiling them up front fills
-    the persistent cache the phases then read."""
-    import jax
-    import jax.numpy as jnp
-
-    from h264_fer.codec.device_iframe import (
-        device_i16_frame,
-        device_mixed_frame,
-    )
-    from h264_fer.codec.device_pframe import device_p_frame
-    from h264_fer.parallel.gop_device import GopIpppEncoder
-    from h264_fer.ops import transform
-
-    qpc = transform.chroma_qp(QP, 0)
-
-    def frame(fn, d, w_, h_, deblock=False):
-        planes = content(1, w_, h_)[0]
-        args = tuple(jnp.asarray(p) if d is None else jax.device_put(p, d)
-                     for p in planes)
-        nmb = (w_ // 16) * (h_ // 16)
-        kw = dict(wmb=w_ // 16, hmb=h_ // 16, qp=QP, qpc=qpc, nw=nmb * 24,
-                  cap=8, deblock=deblock)
-        name = "mixed" if fn is device_mixed_frame else "i16"
-        where = "serial" if d is None else d.platform
-        extra = " deblock" if deblock else ""
-        return (f"{name} frame {w_}x{h_}{extra} ({where})", fn, args, kw)
-
-    def gop_prog(d, w_, h_, T):
-        enc = GopIpppEncoder(w_, h_, QP, gop_len=T, devices=[d])
-        fn = enc._gop_fn(enc.nmb * 24, 8)
-        planes = content(T, w_, h_)
-        args = tuple(jax.device_put(np.stack([f[k] for f in planes]), d)
-                     for k in range(3))
-        args += (jax.device_put(enc._hdr_bits, d),)
-        return (f"gop_ippp {w_}x{h_} T={T} ({d.platform})", fn.func, args,
-                fn.keywords)
-
-    def p_serial(w_, h_):
-        nmb = (w_ // 16) * (h_ // 16)
-        planes = [jnp.asarray(p.astype(np.int32))
-                  for f in content(2, w_, h_) for p in f]
-        prev_mv = jnp.asarray(np.zeros((nmb, 4, 2), np.int32))
-        kw = dict(wmb=w_ // 16, hmb=h_ // 16, window=8, qp=QP, qpc=qpc,
-                  cfg_maxdiff=-1, prefilter=QP < 36, nw=nmb * 24, cap=8)
-        return (f"p frame {w_}x{h_} (serial)", device_p_frame,
-                (*planes, prev_mv), kw)
-
-    out = []
-    if "a" in phases or "c" in phases:
-        out += [frame(device_i16_frame, dev, w, h),
-                frame(device_i16_frame, None, w, h)]
-    if "b" in phases:
-        out += [frame(device_mixed_frame, dev, w, h),
-                frame(device_mixed_frame, None, w, h)]
-    if "c" in phases:
-        out += [gop_prog(dev, w, h, gop), p_serial(w, h)]
-    if "d" in phases:
-        for d in (dev, ref_dev):
-            out += [frame(device_i16_frame, d, pw, ph),
-                    frame(device_mixed_frame, d, pw, ph),
-                    frame(device_i16_frame, d, pw, ph, deblock=True),
-                    gop_prog(d, pw, ph, parity_gop)]
-    return out
+def _both(f, g):
+    """f() and g() in two threads; returns both results and re-raises
+    either's exception."""
+    with ThreadPoolExecutor(2) as pool:
+        a, b = pool.submit(f), pool.submit(g)
+        return a.result(), b.result()
 
 
-def precompile(progs, workers: int = 8) -> None:
-    """Compile programs concurrently (XLA compiles release the GIL);
-    each prints its compile seconds and memory analysis."""
-    with ThreadPoolExecutor(workers) as pool:
-        futs = [pool.submit(_compile_report, label, fn, *args, **kw)
-                for label, fn, args, kw in progs]
-        for f in futs:
-            f.result()
-
-
-def phase_a(dev, w: int = W, h: int = H, n: int = 8) -> None:
+def phase_a(dev, w: int = W, h: int = H, n: int = 8):
     """All-intra I16 through the CLI (one device), byte parity with the
-    serial path, CLI decode equal to the serial reconstructions."""
+    serial path, CLI decode equal to the serial reconstructions. Returns
+    the warm timing, to be run once the card is otherwise idle."""
     from h264_fer.parallel.gop_device import GopIntraEncoder
 
     log(f"[a] all-intra I16 {w}x{h}, {n} frames, CLI --gop-devices 1")
     frames = content(n, w, h)
+    enc = GopIntraEncoder(w, h, QP, devices=[dev])
     with tempfile.TemporaryDirectory() as tmp:
         src = os.path.join(tmp, "in.y4m")
         _write_y4m(src, frames)
-        gop, t_gop = _timed(_cli_encode, src, os.path.join(tmp, "g.264"),
-                            "--gop-devices", "1", "--intra-every", "1")
-        ser, t_ser = _timed(_cli_encode, src, os.path.join(tmp, "s.264"),
-                            "--intra-every", "1", "--device-iframe", "i16")
-        log(f"  first CLI encodes: gop {t_gop:.2f} s, serial {t_ser:.2f} s")
+
+        def gop_side():
+            _compiled(f"[a] GopIntraEncoder i16 {w}x{h}",
+                      lambda: enc.compile(n))
+            return _timed(_cli_encode, src, os.path.join(tmp, "g.264"),
+                          "--gop-devices", "1", "--intra-every", "1")
+
+        def serial_side():
+            cli = _timed(_cli_encode, src, os.path.join(tmp, "s.264"),
+                         "--intra-every", "1", "--device-iframe", "i16")
+            return cli, _serial(frames, 1, True)
+
+        (gop, t_gop), ((ser, t_ser), (ser_py, recons)) = _both(
+            gop_side, serial_side)
+        log(f"  [a] first CLI encodes: gop {t_gop:.2f} s, serial "
+            f"{t_ser:.2f} s")
         _same("a: gop vs serial CLI", gop, ser)
-        ser_py, recons = _serial(frames, 1, True)
         _same("a: serial CLI vs serial encoder", ser, ser_py)
         _check_decode(gop, recons, tmp, "a")
-    enc = GopIntraEncoder(w, h, QP, devices=[dev])
-    _warm("GopIntraEncoder i16", lambda: enc.encode_sequence(frames), n)
-    log(f"  {_peak(dev)}")
+    return lambda: _warm("[a] GopIntraEncoder i16",
+                         lambda: enc.encode_sequence(frames), n)
 
 
-def phase_b(dev, w: int = W, h: int = H, n: int = 4) -> None:
+def phase_b(dev, w: int = W, h: int = H, n: int = 4):
     """Mixed-mode all-intra: GopIntraEncoder vs the serial mixed path,
-    decode equal to the serial reconstructions."""
+    decode equal to the serial reconstructions. Returns the warm
+    timing."""
     from h264_fer.parallel.gop_device import GopIntraEncoder
 
     log(f"[b] all-intra mixed {w}x{h}, {n} frames, GopIntraEncoder")
     frames = content(n, w, h, seed=11)
     enc = GopIntraEncoder(w, h, QP, mode="mixed", devices=[dev])
-    gop, t_gop = _timed(enc.encode_sequence, frames)
-    log(f"  first encode {t_gop:.2f} s")
-    ser, recons = _serial(frames, 1, "mixed")
+
+    def gop_side():
+        _compiled(f"[b] GopIntraEncoder mixed {w}x{h}",
+                  lambda: enc.compile(n))
+        return _timed(enc.encode_sequence, frames)
+
+    (gop, t_gop), (ser, recons) = _both(
+        gop_side, lambda: _serial(frames, 1, "mixed"))
+    log(f"  [b] first encode {t_gop:.2f} s")
     _same("b: gop vs serial mixed", gop, ser)
     with tempfile.TemporaryDirectory() as tmp:
         _check_decode(gop, recons, tmp, "b")
-    _warm("GopIntraEncoder mixed", lambda: enc.encode_sequence(frames), n)
-    log(f"  {_peak(dev)}")
+    return lambda: _warm("[b] GopIntraEncoder mixed",
+                         lambda: enc.encode_sequence(frames), n)
 
 
-def phase_c(dev, w: int = W, h: int = H, n: int = 8, gop: int = 8) -> None:
+def phase_c(dev, w: int = W, h: int = H, n: int = 8, gop: int = 8):
     """IPPP through the CLI (one device, fixed GOPs) vs the serial
-    device I+P path, decode equal to the serial reconstructions."""
+    device I+P path, decode equal to the serial reconstructions. Returns
+    the warm timing."""
     from h264_fer.parallel.gop_device import GopIpppEncoder
 
     log(f"[c] IPPP {w}x{h}, GOP {gop}, {n} frames, CLI --gop-devices 1")
@@ -304,26 +252,37 @@ def phase_c(dev, w: int = W, h: int = H, n: int = 8, gop: int = 8) -> None:
     with tempfile.TemporaryDirectory() as tmp:
         src = os.path.join(tmp, "in.y4m")
         _write_y4m(src, frames)
-        g, t_gop = _timed(_cli_encode, src, os.path.join(tmp, "g.264"),
+
+        def gop_side():
+            _compiled(f"[c] GopIpppEncoder {w}x{h} GOP {gop}",
+                      lambda: enc.compile(n))
+            return _timed(_cli_encode, src, os.path.join(tmp, "g.264"),
                           "--gop-devices", "1", "--intra-every", str(gop),
                           "--no-scene-cut")
-        s, t_ser = _timed(_cli_encode, src, os.path.join(tmp, "s.264"),
-                          "--intra-every", str(gop), "--no-scene-cut",
-                          "--device-iframe", "--device-pframe")
-        log(f"  first CLI encodes: gop {t_gop:.2f} s, serial {t_ser:.2f} s")
+
+        def serial_side():
+            cli = _timed(_cli_encode, src, os.path.join(tmp, "s.264"),
+                         "--intra-every", str(gop), "--no-scene-cut",
+                         "--device-iframe", "--device-pframe")
+            return cli, _serial(frames, gop, True, pframe=True,
+                                scene_cut=False)
+
+        (g, t_gop), ((s, t_ser), (ser_py, recons)) = _both(
+            gop_side, serial_side)
+        log(f"  [c] first CLI encodes: gop {t_gop:.2f} s, serial "
+            f"{t_ser:.2f} s")
         _same("c: gop vs serial CLI", g, s)
-        ser_py, recons = _serial(frames, gop, True, pframe=True,
-                                 scene_cut=False)
         _same("c: serial CLI vs serial encoder", s, ser_py)
         _check_decode(g, recons, tmp, "c")
-    _warm("GopIpppEncoder", lambda: enc.encode_sequence(frames), n)
-    log(f"  {_peak(dev)}")
+    return lambda: _warm("[c] GopIpppEncoder",
+                         lambda: enc.encode_sequence(frames), n)
 
 
 def phase_d(dev, ref_dev, w: int = PARITY_W, h: int = PARITY_H,
-            n_intra: int = 2, n_ippp: int = 8, gop: int = 4) -> None:
+            n_intra: int = 2, n_ippp: int = 8, gop: int = 4):
     """The same sequence encoders on dev and on ref_dev (the CPU
-    backend on the chip) must emit identical streams."""
+    backend on the chip) must emit identical streams. All encodes run
+    at once. No warm timing: returns None."""
     from h264_fer.parallel.gop_device import (
         GopIntraEncoder,
         GopIpppEncoder,
@@ -340,15 +299,17 @@ def phase_d(dev, ref_dev, w: int = PARITY_W, h: int = PARITY_H,
         (f"GopIpppEncoder GOP {gop}", GopIpppEncoder, frames[:n_ippp],
          {"gop_len": gop}),
     ]
-    for label, cls, fr, kw in cases:
-        got, t = _timed(cls(w, h, QP, devices=[dev], **kw).encode_sequence,
-                        fr)
-        want, t_ref = _timed(
-            cls(w, h, QP, devices=[ref_dev], **kw).encode_sequence, fr)
-        _same(f"d: {label}", got, want)
-        log(f"  {label}: {len(got)} bytes identical "
-            f"({dev.platform} {t:.2f} s, {ref_dev.platform} {t_ref:.2f} s, "
-            "compile included)")
+    with ThreadPoolExecutor(2 * len(cases)) as pool:
+        futs = [[pool.submit(_timed, cls(w, h, QP, devices=[d], **kw)
+                             .encode_sequence, fr) for d in (dev, ref_dev)]
+                for _, cls, fr, kw in cases]
+        for (label, *_), (f_dev, f_ref) in zip(cases, futs):
+            (got, t), (want, t_ref) = f_dev.result(), f_ref.result()
+            _same(f"d: {label}", got, want)
+            log(f"  [d] {label}: {len(got)} bytes identical "
+                f"({dev.platform} {t:.2f} s, {ref_dev.platform} "
+                f"{t_ref:.2f} s, compile included)")
+    return None
 
 
 def _stage_inputs(w: int, h: int, ref_dev):
@@ -457,15 +418,16 @@ def _stages(inp):
 
 
 def phase_e(dev, ref_dev, w: int = W, h: int = H, card: str = "",
-            reps: int = 5) -> dict:
+            reps: int = 21):
     """Each device stage on dev vs ref_dev on identical inputs: outputs
-    must be bit-equal. Prints compile seconds and the warm device time
-    on dev. Returns {stage: warm seconds}."""
+    must be bit-equal. Prints each stage's compile seconds and memory
+    analysis. Returns the warm timing of every stage on dev, which
+    returns {stage: median seconds}."""
     import jax
 
     log(f"[e] per-stage {dev.platform} vs {ref_dev.platform} at {w}x{h}")
     inp = _stage_inputs(w, h, ref_dev)
-    times = {}
+    on_dev = []
     for name, fn, args in _stages(inp):
         jitted = jax.jit(fn)
         outs = {}
@@ -473,27 +435,64 @@ def phase_e(dev, ref_dev, w: int = W, h: int = H, card: str = "",
             dargs = [jax.tree_util.tree_map(
                 functools.partial(jax.device_put, device=d), a)
                 for a in args]
-            compiled = _compile_report(f"{name} on {d.platform}", jitted,
-                                       *dargs)
-            out = jax.block_until_ready(compiled(*dargs))
-            outs[d] = jax.device_get(out)
+            compiled = _compiled(f"[e] {name} on {d.platform}",
+                                 lambda: jitted.lower(*dargs).compile())
+            outs[d] = jax.device_get(compiled(*dargs))
             if d is dev:
-                runs = []
-                for _ in range(reps):
-                    t0 = time.perf_counter()
-                    jax.block_until_ready(compiled(*dargs))
-                    runs.append(time.perf_counter() - t0)
-                times[name] = sorted(runs)[reps // 2]
+                on_dev.append((name, compiled, dargs))
         a_leaves = jax.tree_util.tree_leaves(outs[dev])
         b_leaves = jax.tree_util.tree_leaves(outs[ref_dev])
         if len(a_leaves) != len(b_leaves) or not all(
                 np.array_equal(a, b) for a, b in zip(a_leaves, b_leaves)):
             raise AssertionError(f"e: {name} differs between "
                                  f"{dev.platform} and {ref_dev.platform}")
-        log(f"  {name}: bit-equal; warm {times[name] * 1e3:.3f} ms on "
-            f"{dev.device_kind} ({card}), median of {reps}")
-    log(f"  {_peak(dev)}")
-    return times
+        log(f"  [e] {name}: bit-equal")
+
+    def warm() -> dict:
+        times = {}
+        for name, compiled, dargs in on_dev:
+            runs = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                jax.block_until_ready(compiled(*dargs))
+                runs.append(time.perf_counter() - t0)
+            runs.sort()
+            times[name] = runs[reps // 2]
+            log(f"  [e] {name}: warm {times[name] * 1e3:.3f} ms (min "
+                f"{runs[0] * 1e3:.3f}, max {runs[-1] * 1e3:.3f}, median of "
+                f"{reps}) on {dev.device_kind} ({card})")
+        return times
+
+    return warm
+
+
+def one_card_phases(dev, ref_dev, card: str = "") -> dict:
+    """Phases a-e at their full sizes, keyed by letter."""
+    p = functools.partial
+    return {"a": p(phase_a, dev), "b": p(phase_b, dev),
+            "c": p(phase_c, dev), "d": p(phase_d, dev, ref_dev),
+            "e": p(phase_e, dev, ref_dev, card=card)}
+
+
+def run_phases(dev, phases: dict) -> None:
+    """Run the phases' checks at once, so their compiles overlap; then
+    their warm timings one after another, each with the card to itself.
+    Any failure propagates."""
+    def checked(key):
+        warm, dt = _timed(phases[key])
+        log(f"[{key}] checks passed in {dt:.1f} s")
+        return warm
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(phases)) as pool:
+        futs = {k: pool.submit(checked, k) for k in phases}
+        warms = {k: f.result() for k, f in futs.items()}
+    log(f"checks of all phases passed in {time.perf_counter() - t0:.1f} s")
+    for warm in warms.values():
+        if warm is not None:
+            warm()
+    log(f"  {_peak(dev)} (whole process)")
+    log(f"all phases passed in {time.perf_counter() - t0:.1f} s")
 
 
 def phase_cards(devs, w: int = W, h: int = H, gop: int = 8) -> None:
@@ -572,18 +571,20 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--cards", type=int, default=1, choices=(1, 4),
                     help="4: run only the sharded paths on four cards")
-    ap.add_argument("--phases", default="abcde",
-                    help="subset of the one-card phases to run")
     args = ap.parse_args(argv)
 
     import jax
 
+    # open only the cards this run drives (a JAX process reserves
+    # memory on every card it opens)
+    jax.config.update("jax_cuda_visible_devices",
+                      ",".join(str(i) for i in range(args.cards)))
     devs = jax.devices()
     if devs[0].platform != "gpu":
         print(f"chip_smoke: needs a GPU, JAX found {devs[0].platform}",
               file=sys.stderr)
         return 1
-    if len(devs) < args.cards:
+    if len(devs) != args.cards:
         print(f"chip_smoke: needs {args.cards} GPUs, JAX found {len(devs)}",
               file=sys.stderr)
         return 1
@@ -604,27 +605,14 @@ def main(argv=None) -> int:
         f"{'loaded' if get_lib() is not None else 'NOT loaded'}; "
         f"compile cache {cache}")
 
-    dev = devs[0]
     if args.cards == 4:
-        phase_cards(devs[:4])
+        phase_cards(devs)
     else:
-        cpu = jax.devices("cpu")[0]
-        t0 = time.perf_counter()
-        progs = programs(dev, cpu, args.phases)
-        log(f"[compile] {len(progs)} frame and GOP programs, concurrently")
-        precompile(progs)
-        log(f"[compile] done in {time.perf_counter() - t0:.1f} s")
-        steps = {"a": lambda: phase_a(dev), "b": lambda: phase_b(dev),
-                 "c": lambda: phase_c(dev), "d": lambda: phase_d(dev, cpu),
-                 "e": lambda: phase_e(dev, cpu, card=card)}
-        for key in args.phases:
-            t = time.perf_counter()
-            steps[key]()
-            log(f"[{key}] passed in {time.perf_counter() - t:.1f} s")
-        log(f"all phases passed in {time.perf_counter() - t0:.1f} s")
+        run_phases(devs[0], one_card_phases(devs[0], jax.devices("cpu")[0],
+                                            card))
 
     print(json.dumps({"ok": True, "device": {
-        "platform": dev.platform, "kind": dev.device_kind,
+        "platform": devs[0].platform, "kind": devs[0].device_kind,
         "count": len(devs)}}))
     return 0
 

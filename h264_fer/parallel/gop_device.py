@@ -35,6 +35,18 @@ from ..ops import transform
 from ..ops.cavlc_jax import words_to_bytes
 
 
+def _tiers(nmb: int):
+    """(words, cap) payload tiers, smallest first: 768 bit/MB, then ×8,
+    then unbounded (the serial encoder's tiers, codec/encoder.py)."""
+    return ((nmb * 24, 8), (nmb * 192, 24), (None, None))
+
+
+def _zero_frame(w: int, h: int):
+    """Black (y, cb, cr) uint8 planes: stand-in content for compile()."""
+    return (np.zeros((h, w), np.uint8), np.zeros((h // 2, w // 2), np.uint8),
+            np.zeros((h // 2, w // 2), np.uint8))
+
+
 class GopIntraEncoder:
     """All-intra sequence encoder sharded over a 1-D ``gop`` device mesh.
 
@@ -73,13 +85,28 @@ class GopIntraEncoder:
                             else device_i16_frame_impl)
         self._cache = {}
 
+    def _frame_kw(self, nw, cap) -> dict:
+        return dict(wmb=self.wmb, hmb=self.hmb, qp=self.qp, qpc=self.qpc,
+                    nw=nw, cap=cap, deblock=self.deblock)
+
+    def _upload(self, f):
+        """One frame's planes onto the single device."""
+        return tuple(jax.device_put(np.asarray(p, np.uint8), self.devices[0])
+                     for p in f)
+
+    def _stack(self, frames):
+        """(B, ...) uint8 plane stacks, padded to a multiple of the device
+        count by repeating the last frame (padded frames are discarded)."""
+        pad = (-len(frames)) % len(self.devices)
+        return tuple(np.stack([f[k] for f in frames]
+                              + [frames[-1][k]] * pad).astype(np.uint8)
+                     for k in range(3))
+
     def _batched(self, nw, cap):
         key = (nw, cap)
         if key not in self._cache:
-            core = functools.partial(
-                self._frame_impl, wmb=self.wmb, hmb=self.hmb,
-                qp=self.qp, qpc=self.qpc, nw=nw, cap=cap,
-                deblock=self.deblock)
+            core = functools.partial(self._frame_impl,
+                                     **self._frame_kw(nw, cap))
             sh = NamedSharding(self.mesh, P("gop"))
 
             def run(y, cb, cr):
@@ -100,25 +127,36 @@ class GopIntraEncoder:
         w.rbsp_trailing_bits()
         return out + nal_mod.write_nal_unit(1, nal_mod.NAL_PPS, w.getvalue())
 
+    def compile(self, n_frames: int):
+        """Compile the program encode_sequence runs first for n_frames
+        frames (its first payload tier, with the same placement) and
+        return it as a ``jax.stages.Compiled``; its memory_analysis()
+        sizes the program. The jit cache keeps it, so the encode that
+        follows does not compile it again."""
+        zero = _zero_frame(self.w, self.h)
+        nw, cap = _tiers(self.nmb)[0]
+        if len(self.devices) == 1:
+            return self._frame_fn.lower(
+                *self._upload(zero), **self._frame_kw(nw, cap)).compile()
+        return self._batched(nw, cap).lower(
+            *self._stack([zero] * n_frames)).compile()
+
     def _device_payloads(self, frames):
         """Run the sharded batch; returns (words (B, nw) np, nbits (B,))."""
         n_dev = len(self.devices)
         b = len(frames)
         if n_dev == 1:
             # single device: the per-frame program as-is (no vmap batch
-            # dim — reuses the serial path's compiled program).
+            # dim — the serial path's per-frame program).
             # PIPELINED: IDR frames are independent, so every frame's
             # program is dispatched before any readback and the uploads,
             # compute and downloads of successive frames overlap (the
             # async-overlap design of IntraCL,
             # openCL_functions.cpp:221-274, one level up).
-            tiers = ((self.nmb * 24, 8), (self.nmb * 192, 24), (None, None))
+            tiers = _tiers(self.nmb)
 
             def dispatch(f, nw, cap):
-                out = self._frame_fn(
-                    f[0], f[1], f[2],
-                    wmb=self.wmb, hmb=self.hmb, qp=self.qp,
-                    qpc=self.qpc, nw=nw, cap=cap, deblock=self.deblock)
+                out = self._frame_fn(*f, **self._frame_kw(nw, cap))
                 # retain only the payload outputs: holding the full dict
                 # would pin every frame's recon planes in device memory
                 # until the readback loop reaches it (O(frames) HBM)
@@ -127,12 +165,10 @@ class GopIntraEncoder:
             nw0, cap0 = tiers[0]
             # upload and dispatch alternate, so one frame's transfer can
             # overlap the previous frame's compute
-            dev = self.devices[0]
             outs = []
             dframes = []
             for f in frames:
-                df = tuple(jax.device_put(np.asarray(p, np.uint8), dev)
-                           for p in f)
+                df = self._upload(f)
                 outs.append(dispatch(df, nw0, cap0))
                 dframes.append(df)
             frames = dframes
@@ -161,17 +197,10 @@ class GopIntraEncoder:
             for i, (out, nb) in esc.items():
                 words[i] = np.asarray(out["words"])
             return words, nbits
-        pad = (-b) % n_dev  # shard evenly; padded frames are discarded
-        ys = np.stack([f[0] for f in frames]
-                      + [frames[-1][0]] * pad).astype(np.uint8)
-        cbs = np.stack([f[1] for f in frames]
-                       + [frames[-1][1]] * pad).astype(np.uint8)
-        crs = np.stack([f[2] for f in frames]
-                       + [frames[-1][2]] * pad).astype(np.uint8)
+        ys, cbs, crs = self._stack(frames)
         # tiered payload capacity like the serial path (encoder.py):
         # escalate when any frame overflows its static word budget
-        for nw, cap in ((self.nmb * 24, 8), (self.nmb * 192, 24),
-                        (None, None)):
+        for nw, cap in _tiers(self.nmb):
             words, nbits, pok = self._batched(nw, cap)(ys, cbs, crs)
             nbits_h = np.asarray(nbits)
             if ((nw is None or int(nbits_h.max()) <= 32 * nw)
@@ -287,6 +316,12 @@ class GopIpppEncoder:
         w.rbsp_trailing_bits()
         return out + nal_mod.write_nal_unit(1, nal_mod.NAL_PPS, w.getvalue())
 
+    def _gop_kw(self, nw, cap) -> dict:
+        return dict(wmb=self.wmb, hmb=self.hmb, window=self.window,
+                    qp=self.qp, qpc=self.qpc, cfg_maxdiff=self.maxdiff,
+                    prefilter=self.prefilter, nw_i=nw, cap_i=cap, nw_p=nw,
+                    cap_p=cap)
+
     def _gop_fn(self, nw, cap, impl: bool = False):
         from ..codec.device_gop import device_gop_ippp, device_gop_ippp_impl
 
@@ -294,10 +329,17 @@ class GopIpppEncoder:
         # (nested-jit bug, see codec/device_intra.py)
         return functools.partial(
             device_gop_ippp_impl if impl else device_gop_ippp,
-            wmb=self.wmb, hmb=self.hmb, window=self.window,
-            qp=self.qp, qpc=self.qpc, cfg_maxdiff=self.maxdiff,
-            prefilter=self.prefilter, nw_i=nw, cap_i=cap, nw_p=nw,
-            cap_p=cap)
+            **self._gop_kw(nw, cap))
+
+    def _upload(self, *planes):
+        """One GOP's (T, ...) plane stacks onto the single device."""
+        return tuple(jax.device_put(np.asarray(p, np.uint8), self.devices[0])
+                     for p in planes)
+
+    def _put_sharded(self, gops):
+        """(G, T, ...) plane stacks split over the gop mesh axis."""
+        sh = NamedSharding(self.mesh, P("gop"))
+        return tuple(jax.device_put(np.asarray(a), sh) for a in gops)
 
     def _batched(self, nw, cap):
         key = (nw, cap)
@@ -327,13 +369,12 @@ class GopIpppEncoder:
         """gops: (G, T, ...) plane stacks. Returns host (words_i, meta_i,
         words_p, meta_p) with the gop padding removed by the caller."""
         n_dev = len(self.devices)
-        tiers = ((self.nmb * 24, 8), (self.nmb * 192, 24), (None, None))
+        tiers = _tiers(self.nmb)
         ys, cbs, crs = gops
         if n_dev == 1:
             # pipelined: every GOP's program is dispatched before any
             # readback, alternating with the uploads like GopIntraEncoder
-            dev = self.devices[0]
-            hdr_bits = jax.device_put(self._hdr_bits, dev)
+            hdr_bits = jax.device_put(self._hdr_bits, self.devices[0])
             nw0, cap0 = tiers[0]
             fn = self._gop_fn(nw0, cap0)
             # retain only payload outputs: the full dict would pin every
@@ -342,8 +383,7 @@ class GopIpppEncoder:
             dgops = []
             outs = []
             for g in range(len(ys)):
-                y, cb, cr = (jax.device_put(np.asarray(p, np.uint8), dev)
-                             for p in (ys[g], cbs[g], crs[g]))
+                y, cb, cr = self._upload(ys[g], cbs[g], crs[g])
                 dgops.append((y, cb, cr))
                 o = fn(y, cb, cr, hdr_bits)
                 outs.append({k: o[k] for k in keep})
@@ -382,9 +422,7 @@ class GopIpppEncoder:
                     wi[g, : e["words_i"].shape[0]] = e["words_i"]
                     wp[g, :, : e["words_p"].shape[1]] = e["words_p"]
             return wi, mi, wp, mp
-        sh = NamedSharding(self.mesh, P("gop"))
-        ysj, cbsj, crsj = (jax.device_put(np.stack(a), sh)
-                           for a in (ys, cbs, crs))
+        ysj, cbsj, crsj = self._put_sharded(gops)
         for nw, cap in tiers:
             wi, mi, wp, mp = self._batched(nw, cap)(
                 ysj, cbsj, crsj, self._hdr_bits)
@@ -415,11 +453,10 @@ class GopIpppEncoder:
         lens.append(b - cur)
         return lens
 
-    def encode_sequence(self, frames) -> bytes:
-        """frames: list of (y, cb, cr) uint8 planes; length need not be a
-        multiple of gop_len or the device count (padded GOPs/frames are
-        encoded and discarded)."""
-        b = len(frames)
+    def _gop_stacks(self, frames):
+        """(GOP lengths, (ys, cbs, crs)): frames split into GOPs, each
+        padded to the longest by repeating its last frame, and the GOP
+        count padded to a multiple of the device count."""
         lens = self._gop_lengths(frames)
         T = max(max(lens), 2)
         if T != len(self._p_hdrs) + 1:
@@ -436,7 +473,34 @@ class GopIpppEncoder:
             rep = lambda a: np.concatenate(  # noqa: E731
                 [a, np.repeat(a[-1:], gpad, axis=0)])
             ys, cbs, crs = rep(ys), rep(cbs), rep(crs)
-        wi, mi, wp, mp = self._device_payloads((ys, cbs, crs))
+        return lens, (ys, cbs, crs)
+
+    def compile(self, n_frames: int):
+        """Compile the program encode_sequence runs first for n_frames
+        frames (its first payload tier, with the same placement) and
+        return it as a ``jax.stages.Compiled``; its memory_analysis()
+        sizes the program. The jit cache keeps it, so the encode that
+        follows does not compile it again."""
+        zero = _zero_frame(self.w, self.h)
+        _, gops = self._gop_stacks([zero] * n_frames)
+        nw, cap = _tiers(self.nmb)[0]
+        if len(self.devices) == 1:
+            from ..codec.device_gop import device_gop_ippp
+
+            hdr_bits = jax.device_put(self._hdr_bits, self.devices[0])
+            return device_gop_ippp.lower(
+                *self._upload(*(a[0] for a in gops)), hdr_bits,
+                **self._gop_kw(nw, cap)).compile()
+        return self._batched(nw, cap).lower(
+            *self._put_sharded(gops), self._hdr_bits).compile()
+
+    def encode_sequence(self, frames) -> bytes:
+        """frames: list of (y, cb, cr) uint8 planes; length need not be a
+        multiple of gop_len or the device count (padded GOPs/frames are
+        encoded and discarded)."""
+        lens, gops = self._gop_stacks(frames)
+        n_gop = len(lens)
+        wi, mi, wp, mp = self._device_payloads(gops)
         out = bytearray(self.headers())
         idr_id = 0
         prev_was_idr = False

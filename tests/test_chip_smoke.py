@@ -15,15 +15,6 @@ def test_main_refuses_cpu_backend(capsys):
     assert '"ok"' not in capsys.readouterr().out
 
 
-def test_precompile_builds_the_phase_programs(capsys):
-    dev, ref = jax.devices("cpu")[:2]
-    progs = chip_smoke.programs(dev, ref, "ac", w=64, h=48, gop=2)
-    assert len(progs) == 4  # i16 committed + serial, GOP, serial P
-    chip_smoke.precompile(progs)
-    out = capsys.readouterr().out
-    assert out.count("compile") == len(progs)
-
-
 @pytest.mark.parametrize("phase", ["a", "b", "c", "e"])
 def test_phase_runs_at_qcif_on_cpu(phase):
     dev, ref = jax.devices("cpu")[:2]
@@ -33,7 +24,8 @@ def test_phase_runs_at_qcif_on_cpu(phase):
         "c": lambda: chip_smoke.phase_c(dev, n=5, gop=4, **QCIF),
         "e": lambda: chip_smoke.phase_e(dev, ref, reps=1, **QCIF),
     }
-    run[phase]()
+    warm = run[phase]()
+    warm()
 
 
 @pytest.fixture
@@ -47,9 +39,5 @@ def gpu_device():
 
 @pytest.mark.gpu
 def test_smoke_phases_on_gpu(gpu_device):
-    cpu = jax.devices("cpu")[0]
-    chip_smoke.phase_a(gpu_device)
-    chip_smoke.phase_b(gpu_device)
-    chip_smoke.phase_c(gpu_device)
-    chip_smoke.phase_d(gpu_device, cpu)
-    chip_smoke.phase_e(gpu_device, cpu)
+    chip_smoke.run_phases(gpu_device, chip_smoke.one_card_phases(
+        gpu_device, jax.devices("cpu")[0]))

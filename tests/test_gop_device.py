@@ -195,3 +195,37 @@ def test_gop_ippp_scene_cut_source_parity(clip):
                           devices=jax.devices()[:2],
                           scene_cut_source=True)
     assert genc.encode_sequence(frames) == serial
+
+
+@pytest.mark.parametrize("kind,n_dev", [("intra", 1), ("intra", 3),
+                                        ("ippp", 1), ("ippp", 3)])
+def test_compile_builds_the_program_encode_runs(clip, kind, n_dev):
+    """compile() returns the first-tier program encode_sequence runs,
+    placed as encode_sequence places it: the encode that follows does not
+    compile that program again."""
+    import jax
+    from jax import monitoring
+
+    from h264_fer.parallel.gop_device import GopIpppEncoder
+
+    frames = clip[:4]
+    devs = jax.devices()[:n_dev]
+    enc = (GopIntraEncoder(176, 144, 28, devices=devs) if kind == "intra"
+           else GopIpppEncoder(176, 144, 28, gop_len=2, devices=devs))
+    names = []
+
+    def on_event(event, _secs, **kw):
+        if event == "/jax/core/compile/backend_compile_duration":
+            names.append(kw.get("fun_name"))
+
+    monitoring.register_event_duration_secs_listener(on_event)
+    try:
+        compiled = enc.compile(len(frames))
+        built, names[:] = set(names), []
+        stream = enc.encode_sequence(frames)
+        again = set(names)
+    finally:
+        monitoring.unregister_event_duration_listener(on_event)
+    assert built and not built & again
+    assert compiled.memory_analysis() is not None
+    assert stream.startswith(enc.headers())
